@@ -1,15 +1,23 @@
-"""image_denoising_filter_tpu: a TPU-native (JAX/XLA/Pallas) image-denoising
-framework with the capabilities of the Vulkan-compute reference
-Reefufui/image_denoising_filter.
+"""Deprecated import path of `image_denoising_filter`.
 
-Subpackages:
-  ops      -- Pallas TPU kernels + pure-NumPy oracles for the five device kernels
-  models   -- denoiser pipelines (bilateral, layer-guided, NLM, temporal NLM)
-  parallel -- device mesh, spatial sharding with ICI halo exchange, frame DP
-  runtime  -- session orchestration, frame prefetch, timing
-  utils    -- PNG/EXR codecs, dataset discovery, progress, timing helpers
+Importing this package warns and registers every module of
+`image_denoising_filter` under this name too, so old imports such as
+`from <this package>.ops import stencils` get the very same module objects.
+Import `image_denoising_filter` instead.
 """
 
-__version__ = "0.1.0"
+import importlib
+import pkgutil
+import sys
+import warnings
 
-from . import config  # noqa: F401
+import image_denoising_filter as _pkg
+
+warnings.warn(
+    f"{__name__} is deprecated; import {_pkg.__name__} instead",
+    DeprecationWarning,
+    stacklevel=2,
+)
+for _mod in pkgutil.walk_packages(_pkg.__path__, _pkg.__name__ + "."):
+    sys.modules[__name__ + _mod.name[len(_pkg.__name__):]] = importlib.import_module(_mod.name)
+sys.modules[__name__] = _pkg

@@ -1,6 +1,6 @@
 // Native runtime components: OpenMP CPU bilateral oracle + PNG/EXR codecs.
 //
-// TPU-native counterpart of the reference's native host components: the
+// The counterpart of the reference's native host components: the
 // OpenMP CPU bilateral path (reference src/main.cpp:1732-1921) and the
 // vendored lodepng/tinyexr codecs (reference src/main.cpp:13-14, 190-229).
 // Exposed as a plain C ABI consumed via ctypes (utils/native.py); the Python

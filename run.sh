@@ -14,4 +14,4 @@ if [ ! -f "$IMAGE" ]; then
     python tools/make_dataset.py "$(dirname "$IMAGE")" --frames 10 --size 240x320
 fi
 
-tpu-denoise "$IMAGE"
+idf-denoise "$IMAGE"

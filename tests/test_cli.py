@@ -6,8 +6,8 @@ import os
 
 import numpy as np
 
-from image_denoising_filter_tpu import cli
-from image_denoising_filter_tpu.utils import imageio
+from image_denoising_filter import cli
+from image_denoising_filter.utils import imageio
 
 
 def test_cli_linear_and_cpu(tmp_path, monkeypatch, capsys):
@@ -96,3 +96,22 @@ def test_compare_tool(tmp_path, capsys):
     # mismatched shapes -> error
     imageio.save(pb, a[:8])
     assert compare.main([pa, pb]) == 1
+
+
+def test_deprecated_import_path():
+    """The package's pre-rename directory beside it is an alias: importing
+    it warns, and its modules are the very same objects as the package's."""
+    import importlib
+    import warnings
+    from pathlib import Path
+
+    from image_denoising_filter.ops import stencils
+
+    root = Path(__file__).resolve().parent.parent
+    (alias,) = [p.name for p in root.glob("image_denoising_filter_*") if (p / "__init__.py").exists()]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        old = importlib.import_module(alias + ".ops.stencils")
+    assert old is stencils
+    assert importlib.import_module(alias + ".cli") is cli
+    assert any(issubclass(w.category, DeprecationWarning) for w in caught)

@@ -4,7 +4,7 @@ import os
 
 import numpy as np
 
-from image_denoising_filter_tpu.utils import dataset, png
+from image_denoising_filter.utils import dataset, png
 
 
 def _mk(path):

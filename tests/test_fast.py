@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from image_denoising_filter_tpu.config import BilateralParams
-from image_denoising_filter_tpu.ops import bilateral_fast
-from image_denoising_filter_tpu.ops import reference as ref
+from image_denoising_filter.config import BilateralParams
+from image_denoising_filter.ops import bilateral_fast
+from image_denoising_filter.ops import reference as ref
 
 
 def _scene(rng, h=96, w=128, noise=0.06):
@@ -57,13 +57,13 @@ def test_turbo_constant_alpha_preserved(rng):
 def test_nlm_stride2_close_to_exact(rng):
     """The approximate NLM (stride-2 search, 49 of 196 candidates) must track
     the exact NLM output closely on noisy structured content."""
-    from image_denoising_filter_tpu.config import NlmParams
-    from image_denoising_filter_tpu.ops import nlm_xla, normalize_xla
+    from image_denoising_filter.config import NlmParams
+    from image_denoising_filter.ops import nlm_xla, normalize
 
     clean, noisy = _scene(rng)
-    exact = np.asarray(normalize_xla(*nlm_xla(noisy, noisy, NlmParams())))
+    exact = np.asarray(normalize(*nlm_xla(noisy, noisy, NlmParams())))
     fast = np.asarray(
-        normalize_xla(*nlm_xla(noisy, noisy, NlmParams(search_stride=2)))
+        normalize(*nlm_xla(noisy, noisy, NlmParams(search_stride=2)))
     )
     db = ref.psnr(fast[..., :3], exact[..., :3])
     assert db >= 40.0, f"stride-2 NLM vs exact: {db:.1f} dB"
@@ -71,16 +71,15 @@ def test_nlm_stride2_close_to_exact(rng):
 
 def test_nlm_s6_stride2_gate(rng):
     """The trimmed-search NLM turbo row (s=6, stride 2: 36 of 196 candidates)
-    must stay above the 40 dB bench gate vs the exact s=7 output. Measured
-    41.0 dB on the bench gate content (s=5 and stride 3 fail the gate --
-    negative results in docs/PERFORMANCE.md)."""
-    from image_denoising_filter_tpu.config import NlmParams
-    from image_denoising_filter_tpu.ops import nlm_xla, normalize_xla
+    must stay above the 40 dB gate vs the exact s=7 output (s=5 and stride 3
+    fail the gate in a CPU quality screen)."""
+    from image_denoising_filter.config import NlmParams
+    from image_denoising_filter.ops import nlm_xla, normalize
 
     clean, noisy = _scene(rng)
-    exact = np.asarray(normalize_xla(*nlm_xla(noisy, noisy, NlmParams())))
+    exact = np.asarray(normalize(*nlm_xla(noisy, noisy, NlmParams())))
     fast = np.asarray(
-        normalize_xla(
+        normalize(
             *nlm_xla(noisy, noisy, NlmParams(search_radius=6, search_stride=2))
         )
     )
@@ -89,17 +88,15 @@ def test_nlm_s6_stride2_gate(rng):
 
 
 @pytest.mark.parametrize("s_r,st", [(7, 2), (6, 2)])
-def test_nlm_turbo_pallas_path_gate(rng, s_r, st):
-    """The bench turbo NLM rows ship through the STRIDED PALLAS kernel with
-    bf16 taps (nlm_accumulate + TilingConfig bfloat16), not the XLA variant
-    the gates above exercise -- gate that exact path (interpret mode on CPU)
-    so a strided-kernel-specific quality bug cannot pass every test and still
-    carry the bench geomean (round-3 VERDICT #4)."""
-    from image_denoising_filter_tpu.config import NlmParams, TilingConfig
-    from image_denoising_filter_tpu.ops import nlm_accumulate, normalize
+def test_nlm_turbo_kernel_path_gate(rng, s_r, st):
+    """The turbo NLM rows ship through the STRIDED GPU kernel
+    (nlm_accumulate), not the XLA variant the gates above exercise -- gate
+    that path (interpret mode on CPU) so a strided-kernel-specific quality
+    bug cannot pass every test."""
+    from image_denoising_filter.config import NlmParams
+    from image_denoising_filter.ops import nlm_accumulate, normalize
 
     clean, noisy = _scene(rng)
-    bf16 = TilingConfig(compute_dtype="bfloat16")
     exact = np.asarray(
         normalize(*nlm_accumulate(noisy, noisy, NlmParams(uniform_alpha=True)))
     )
@@ -111,24 +108,22 @@ def test_nlm_turbo_pallas_path_gate(rng, s_r, st):
                 NlmParams(
                     uniform_alpha=True, search_radius=s_r, search_stride=st
                 ),
-                bf16,
             )
         )
     )
     db = ref.psnr(fast[..., :3], exact[..., :3])
-    assert db >= 40.0, f"s={s_r} stride-{st} Pallas NLM vs exact: {db:.1f} dB"
+    assert db >= 40.0, f"s={s_r} stride-{st} kernel NLM vs exact: {db:.1f} dB"
 
 
 @pytest.mark.parametrize("disk,min_db", [(False, 42.0), (True, 41.0)])
 def test_nlm_weights_halfres_gate(disk, min_db):
-    """Half-res-weights NLM (weights_halfres) through the shipping Pallas+bf16
-    path on the bench gate content class (the 512x1024 sinusoids at 256x512:
-    same dB to 0.1). Measured 42.5 / 41.5 dB (disk) -- thresholds sit 0.5 dB
-    under. NOTE the approximation is content-dependent: hard ROW edges (the
-    96x128 checker scene above) drop it to ~35 dB, documented in
-    docs/PERFORMANCE.md -- the bench additionally gates it at 4K render."""
-    from image_denoising_filter_tpu.config import NlmParams, TilingConfig
-    from image_denoising_filter_tpu.ops import nlm_accumulate, normalize
+    """Half-res-weights NLM (weights_halfres, an XLA path) on the sinusoid
+    gate content (256x512). A CPU screen measured 42.5 / 41.5 dB (disk) --
+    thresholds sit 0.5 dB under. NOTE the approximation is
+    content-dependent: hard ROW edges (the 96x128 checker scene above) drop
+    it to ~35 dB."""
+    from image_denoising_filter.config import NlmParams
+    from image_denoising_filter.ops import nlm_accumulate, normalize
 
     r = np.random.default_rng(0)
     yy, xx = np.mgrid[0:256, 0:512].astype(np.float32)
@@ -145,7 +140,6 @@ def test_nlm_weights_halfres_gate(disk, min_db):
     nz[..., 3] = 1.0
     nz2 = (clean + r.normal(0, 0.05, clean.shape)).astype(np.float32)
     nz2[..., 3] = 1.0
-    bf16 = TilingConfig(compute_dtype="bfloat16")
     exact = np.asarray(
         normalize(*nlm_accumulate(nz, nz2, NlmParams(uniform_alpha=True)))
     )
@@ -160,7 +154,6 @@ def test_nlm_weights_halfres_gate(disk, min_db):
                     search_disk=disk,
                     weights_halfres=True,
                 ),
-                bf16,
             )
         )
     )
@@ -169,13 +162,13 @@ def test_nlm_weights_halfres_gate(disk, min_db):
 
 
 def test_nlm_stride2_denoises_as_well_as_exact(rng):
-    from image_denoising_filter_tpu.config import NlmParams
-    from image_denoising_filter_tpu.ops import nlm_xla, normalize_xla
+    from image_denoising_filter.config import NlmParams
+    from image_denoising_filter.ops import nlm_xla, normalize
 
     clean, noisy = _scene(rng)
-    exact = np.asarray(normalize_xla(*nlm_xla(noisy, noisy, NlmParams())))
+    exact = np.asarray(normalize(*nlm_xla(noisy, noisy, NlmParams())))
     fast = np.asarray(
-        normalize_xla(*nlm_xla(noisy, noisy, NlmParams(search_stride=2)))
+        normalize(*nlm_xla(noisy, noisy, NlmParams(search_stride=2)))
     )
     db_exact = ref.psnr(exact[..., :3], clean[..., :3])
     db_fast = ref.psnr(fast[..., :3], clean[..., :3])
@@ -192,8 +185,8 @@ def test_ssim_metric_sanity(rng):
 
 
 def test_turbo_session_and_cli(tmp_path):
-    from image_denoising_filter_tpu import cli
-    from image_denoising_filter_tpu.utils import imageio
+    from image_denoising_filter import cli
+    from image_denoising_filter.utils import imageio
 
     rng = np.random.default_rng(0)
     _, noisy = _scene(rng, h=48, w=64)
@@ -212,7 +205,7 @@ def test_turbo_session_and_cli(tmp_path):
 
 
 def _exact_layers(noisy, layers, lp):
-    from image_denoising_filter_tpu.ops import reference as r
+    from image_denoising_filter.ops import reference as r
 
     wc = np.zeros(noisy.shape, np.float32)
     nw = np.zeros(noisy.shape[:2], np.float32)
@@ -224,8 +217,8 @@ def _exact_layers(noisy, layers, lp):
 
 
 def test_turbo_layers_close_to_exact(rng):
-    from image_denoising_filter_tpu.config import LayersParams
-    from image_denoising_filter_tpu.ops import (
+    from image_denoising_filter.config import LayersParams
+    from image_denoising_filter.ops import (
         cross_bilateral_layers_fast,
         normalize_layers_fast,
     )
@@ -255,7 +248,7 @@ def test_turbo_layers_close_to_exact(rng):
 
 
 def test_turbo_layers_no_layers_sentinel(rng):
-    from image_denoising_filter_tpu.ops import normalize_layers_fast
+    from image_denoising_filter.ops import normalize_layers_fast
 
     out = np.asarray(
         normalize_layers_fast(
@@ -270,7 +263,7 @@ def test_turbo_layers_session_and_cli(tmp_path):
     import subprocess
     import sys
 
-    from image_denoising_filter_tpu.utils import imageio
+    from image_denoising_filter.utils import imageio
 
     rng = np.random.default_rng(3)
     clean, noisy = _scene(rng, h=48, w=64)
@@ -283,7 +276,7 @@ def test_turbo_layers_session_and_cli(tmp_path):
         [
             sys.executable,
             "-m",
-            "image_denoising_filter_tpu.cli",
+            "image_denoising_filter.cli",
             str(root / "frame_0000.png"),
             "--configs",
             "layers",
@@ -306,406 +299,137 @@ def test_turbo_layers_session_and_cli(tmp_path):
 @pytest.mark.parametrize("hw", [(50, 300), (97, 131)])
 @pytest.mark.parametrize("d", [2, 4])
 def test_turbo_odd_shapes(rng, hw, d):
-    """Odd, non-tile-aligned shapes go through the clamped tile selection
-    (tile_w rounded to 128*d multiples so the grid-slab DMA stays provably
-    aligned); output must stay finite and close to the exact kernel.
-
-    Calls the Pallas grid pipeline DIRECTLY (interpret mode on CPU) so the
-    clamp logic in _grid_pipeline_planar is what this test runs -- the public
-    bilateral_fast entry takes the pure-JAX lattice path off-TPU and would
-    let a tile-selection regression slip through (round-2 ADVICE.md)."""
-    import jax.numpy as jnp
-
-    from image_denoising_filter_tpu.ops import fast
-
+    """Odd shapes that are not multiples of d go through the pad-to-d pool
+    and the cropped upsample; output must stay finite and close to the
+    exact kernel."""
     h, w = hw
     clean, noisy = _scene(rng, h=h, w=w)
     bp = BilateralParams()
-    planar = jnp.transpose(jnp.asarray(noisy), (2, 0, 1))
-    got = np.transpose(
-        np.asarray(fast._grid_pipeline_planar(planar, bp, 8, d)), (1, 2, 0)
-    )
+    got = np.asarray(bilateral_fast(noisy, bp, 8, d))
     assert got.shape == (h, w, 4) and np.isfinite(got).all()
-    from image_denoising_filter_tpu.ops import bilateral
+    from image_denoising_filter.ops import bilateral
 
     exact = np.asarray(bilateral(noisy, bp))
     db = ref.psnr(got[..., :3], exact[..., :3])
     assert db >= 35.0, f"odd-shape turbo d={d} vs exact: {db:.1f} dB"
 
 
+def _guided_scene(rng, h=96, w=128):
+    clean, noisy = _scene(rng, h=h, w=w)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    grad = np.stack(
+        [xx / w, yy / h, (xx + yy) / (h + w), np.ones((h, w), np.float32)], -1
+    ).astype(np.float32)
+    return clean, noisy, [clean, grad]
+
+
+def _turbo_layers(noisy, layers, lp, levels, d):
+    from image_denoising_filter.ops import (
+        cross_bilateral_layers_fast,
+        normalize_layers_fast,
+    )
+
+    wc = nw = 0.0
+    for layer in layers:
+        pwc, pnw = cross_bilateral_layers_fast(noisy, layer, lp, levels, d)
+        wc, nw = wc + pwc, nw + pnw
+    return np.asarray(normalize_layers_fast(wc, nw))
+
+
+@pytest.mark.parametrize("d,min_db", [(2, 35.0), (4, 32.0), (8, 27.0)])
+def test_turbo_layers_guided_vs_exact_kernel(rng, d, min_db):
+    """The plain-XLA guided grid (layer = guide, target = payload, splatted
+    per pixel, per-channel num/den, tent slice) against the exact
+    cross-bilateral kernel, accumulated over two layers and normalized."""
+    from image_denoising_filter.config import LayersParams
+    from image_denoising_filter.ops import cross_bilateral_layers, normalize
+
+    _, noisy, layers = _guided_scene(rng)
+    lp = LayersParams(radius=8)
+    wc = nw = 0.0
+    for layer in layers:
+        pwc, pnw = cross_bilateral_layers(noisy, layer, lp)
+        wc, nw = wc + pwc, nw + pnw
+    exact = np.asarray(normalize(wc, nw))
+    got = _turbo_layers(noisy, layers, lp, 6, d)
+    db = ref.psnr(got[..., :3], exact[..., :3])
+    assert db >= min_db, f"guided turbo d={d}: {db:.1f} dB < {min_db}"
+
+
+def test_turbo_layers_partials_contract(rng):
+    """Partials keep the exact pipeline's contract: weightColor (H, W, 4),
+    per-channel normWeight (H, W, 3), both additive over layers; a layer
+    equal to the target with one level reduces to a blur whose normalized
+    output is the payload's Gaussian mean (range weights all 1)."""
+    from image_denoising_filter.config import LayersParams
+    from image_denoising_filter.ops import cross_bilateral_layers_fast
+
+    _, noisy, layers = _guided_scene(rng, 40, 56)
+    wc, nw = cross_bilateral_layers_fast(noisy, layers[1], LayersParams(), 5, 2)
+    assert wc.shape == (40, 56, 4) and nw.shape == (40, 56, 3)
+    assert np.all(np.asarray(nw) > 0)
+    flat = np.full((40, 56, 4), 0.3, np.float32)
+    out = _turbo_layers(flat, [flat], LayersParams(), 6, 2)
+    np.testing.assert_allclose(out, 0.3, atol=1e-5)
+
+
 @pytest.mark.parametrize("d", [2, 4])
-def test_turbo_cull_mask_variants_identical(rng, d):
-    """The two culling-reduction variants (full-res boundary masking vs raw
-    reduce + scalar NaN guards) must produce IDENTICAL output on ragged
-    shapes -- garbage can only widen the culling bounds, never change which
-    nonzero-ramp levels run (ops/fast.py cull_mask)."""
-    import jax.numpy as jnp
-
-    from image_denoising_filter_tpu.ops import fast
-
-    _, noisy = _scene(rng, h=112, w=384)  # ragged at every d's tile floor
-    bp = BilateralParams()
-    planar = jnp.transpose(jnp.asarray(noisy), (2, 0, 1))
-    a = np.asarray(fast._grid_pipeline_planar(planar, bp, 6, d, cull_mask=True))
-    b = np.asarray(fast._grid_pipeline_planar(planar, bp, 6, d, cull_mask=False))
-    np.testing.assert_array_equal(a, b)
-
-
-@pytest.mark.parametrize(
-    "hw,d,ua",
-    [((112, 384), 2, True), ((112, 384), 4, False), ((96, 256), 8, True),
-     ((256, 512), 2, False)],  # last: hs multiple of the build tile height
-)
-def test_turbo_pad_free_matches_legacy(rng, hw, d, ua):
-    """The pad-free grid layout (the build kernel emits the grid directly in
-    the slice kernel's padded slab layout, deleting the full-grid jnp.pad
-    copy -- ops/fast.py _build_grid_pallas extend_to) matches the legacy
-    build-then-pad pipeline to the STORED-GRID bf16 contract: the in-kernel
-    edge-dup fixups reproduce jnp.pad(mode='edge') exactly and overhang
-    cells only ever meet structurally-zero upsample weights for valid
-    pixels, but the one-cell input shift moves the blur band inside the dot
-    contraction, and the ~1-f32-ulp reduction-regrouping shift occasionally
-    lands on a bf16 rounding boundary -- the same contract as the fused
-    kernel and the sharded turbo tests (round-4 VERDICT #4 'd=2 glue')."""
-    import jax.numpy as jnp
-
-    from test_sharding import _assert_bf16_grid_close
-
-    from image_denoising_filter_tpu.ops import fast
-
-    h, w = hw
-    noisy = rng.uniform(0, 1, (h, w, 4)).astype(np.float32)
-    if ua:
-        noisy[..., 3] = 1.0
-    bp = BilateralParams(uniform_alpha=ua)
-    planar = jnp.transpose(jnp.asarray(noisy), (2, 0, 1))
-    a = np.asarray(fast._grid_pipeline_planar(planar, bp, 6, d, pad_free=False))
-    b = np.asarray(fast._grid_pipeline_planar(planar, bp, 6, d, pad_free=True))
-    _assert_bf16_grid_close(b, a)
-
-
-def test_turbo_pad_free_overhang_skip_geometry(rng):
-    """Pin the all-overhang block-skip path (round 5): with these tiles the
-    extended grid spans 3 build-block columns while the dup cells end inside
-    column 1, so column 2 is ENTIRELY overhang -- the build kernel writes
-    zeros there and skips its DMA + blur math. Valid-pixel outputs must
-    still match legacy (the slice's upsample weights for overhang cells are
-    structurally zero) and be finite everywhere."""
-    import jax.numpy as jnp
-
-    from test_sharding import _assert_bf16_grid_close
-
-    from image_denoising_filter_tpu.ops import fast
-
-    h, w, d = 128, 960, 4  # hs=32, ws=240
-    noisy = rng.uniform(0, 1, (h, w, 4)).astype(np.float32)
-    noisy[..., 3] = 1.0
-    bp = BilateralParams(uniform_alpha=True)
-    planar = jnp.transpose(jnp.asarray(noisy), (2, 0, 1))
-    kw = dict(tile_h=64, tile_w=1024, build_tile=(16, 128))
-    # Geometry audit (mirrors _grid_pipeline_planar/_build_grid_pallas):
-    # gws=256 -> slab_w=384 -> tw_tot=384 -> build nw=3 with j_bnd =
-    # ws//128 = 1: build column j=2 is all-overhang and skipped.
-    assert (240 // 128) + 1 < -(-384 // 128)
-    a = np.asarray(
-        fast._grid_pipeline_planar(planar, bp, 6, d, pad_free=False, **kw)
-    )
-    b = np.asarray(
-        fast._grid_pipeline_planar(planar, bp, 6, d, pad_free=True, **kw)
-    )
-    assert np.isfinite(b).all()
-    _assert_bf16_grid_close(b, a)
-
-
-@pytest.mark.parametrize(
-    "slice_t,build_t", [((256, 256), (128, 256)), ((128, 512), (64, 128))]
-)
-def test_turbo_tile_choice_invariant(rng, slice_t, build_t):
-    """Tile sizes are a pure scheduling choice: any legal (slice, build)
-    tiling must produce identical output (interpret mode is exact f32, so
-    bitwise; on-chip the bf16 matmul regrouping shifts ~1 ulp). Guards the
-    round-3 tile plumbing (tile_w/build_tile kwargs) used by the measured
-    4K defaults and tools/tile_sweep_r3.py."""
-    import jax.numpy as jnp
-
-    from image_denoising_filter_tpu.ops import fast
-
-    clean, noisy = _scene(rng, h=181, w=413)
-    bp = BilateralParams(uniform_alpha=True)
-    noisy = noisy.copy()
-    noisy[..., 3] = 1.0
-    planar = jnp.transpose(jnp.asarray(noisy), (2, 0, 1))
-    base = np.asarray(fast._grid_pipeline_planar(planar, bp, 6, 2))
+def test_turbo_hdr_range_bilateral(rng, d):
+    """HDR values above 1 and below 0 through the bilateral grid: the grid
+    range comes from the data, so an affine HDR stretch of the scene must
+    give the same affine stretch of the output (sigma_color scaled along)."""
+    _, noisy = _scene(rng)
+    a, b = 6.0, -1.5  # maps [0, 1] to [-1.5, 4.5]
+    hdr = noisy.copy()
+    hdr[..., :3] = a * noisy[..., :3] + b
+    base = np.asarray(bilateral_fast(noisy, BilateralParams(), 6, d))
     got = np.asarray(
-        fast._grid_pipeline_planar(
-            planar,
-            bp,
-            6,
-            2,
-            tile_h=slice_t[0],
-            tile_w=slice_t[1],
-            build_tile=build_t,
-        )
+        bilateral_fast(hdr, BilateralParams(sigma_color=0.2 * a), 6, d)
     )
-    np.testing.assert_array_equal(got, base)
-
-
-def test_slice_pad_edge_fold_equivalent(rng):
-    """pad_edge=True (raw grid, single combined edge+alignment pad) must be
-    bitwise-identical to the explicit two-step pad (edge pad then
-    pad_edge=False), for both the plain and the guided slice kernels --
-    guards the round-3 grid-pad fold that removed one full-grid HBM copy."""
-    import jax.numpy as jnp
-
-    from image_denoising_filter_tpu.config import LayersParams
-    from image_denoising_filter_tpu.ops import fast
-
-    clean, noisy = _scene(rng, h=137, w=259)
-    noisy = noisy.copy()
-    noisy[..., 3] = 1.0
-    d, levels = 2, 6
-    bp = BilateralParams(uniform_alpha=True)
-    planar = jnp.transpose(jnp.asarray(noisy), (2, 0, 1))
-    h, w = planar.shape[1:]
-    hp, wp = -(-h // d) * d, -(-w // d) * d
-    planar_p = jnp.pad(planar, ((0, 0), (0, hp - h), (0, wp - w)), mode="edge")
-    small = fast._pool_pallas(planar_p, d)
-    lmin = jnp.min(small[:3], axis=(1, 2))
-    lmax = jnp.max(small[:3], axis=(1, 2))
-    step = jnp.maximum(lmax - lmin, 1e-6) / (levels - 1)
-    taps = fast._grid_taps(bp.sigma_spatial, d)
-    grid = fast._build_grid_pallas(
-        small, lmin, step, levels, taps, bp.border, 0.5 / bp.sigma_color**2,
-        uniform_alpha=True,
-    )
-    args = (lmin, 1.0 / step, levels, d, 64, 256)
-    kw = dict(uniform_alpha=True, alpha_val=planar[3, 0, 0])
-    folded = np.asarray(
-        fast._slice_grid_pallas(planar[:3], grid, *args, pad_edge=True, **kw)
-    )
-    grid_pre = jnp.pad(grid, ((0, 0), (1, 1), (1, 1)), mode="edge")
-    explicit = np.asarray(
-        fast._slice_grid_pallas(planar[:3], grid_pre, *args, **kw)
-    )
-    np.testing.assert_array_equal(folded, explicit)
-
-    # Guided variant.
-    lp = LayersParams()
-    layer_p = planar_p  # layer == target is a legal guide
-    small_l = fast._pool_pallas(layer_p, d)
-    gmin = jnp.min(small_l[:3], axis=(1, 2))
-    gmax = jnp.max(small_l[:3], axis=(1, 2))
-    gstep = jnp.maximum(gmax - gmin, 1e-6) / (levels - 1)
-    gtaps = fast._grid_taps(lp.sigma_spatial, d)
-    ggrid = fast._build_guided_grid_pallas(
-        small, small_l, gmin, gstep, levels, gtaps, lp.border,
-        0.5 / lp.sigma_color**2,
-    )
-    gargs = (gmin, 1.0 / gstep, levels, d, 64, 256)
-    gfold = np.asarray(
-        fast._slice_guided_grid_pallas(
-            planar[:3], ggrid, *gargs, pad_edge=True
-        )
-    )
-    ggrid_pre = jnp.pad(ggrid, ((0, 0), (1, 1), (1, 1)), mode="edge")
-    gexp = np.asarray(
-        fast._slice_guided_grid_pallas(planar[:3], ggrid_pre, *gargs)
-    )
-    np.testing.assert_array_equal(gfold, gexp)
-
-
-@pytest.mark.parametrize("ua", [True, False])
-@pytest.mark.parametrize("d", [2, 4, 8])
-def test_fused_pipeline_matches_two_kernel_full_range(rng, ua, d):
-    """Fused build+slice vs the two-kernel pipeline on FULL-RANGE content:
-    the full-res guide exceeds the pooled range in every tile, so t clips to
-    0 somewhere, floor(tmin) == 0, and the fused kernel's telescoped sum is
-    based at g_0 -- the same level structure as the two-kernel slice. The
-    only legitimate divergence is a stored-cell bf16 rounding flip: the blur
-    contraction length differs between the standalone build tile and the
-    fused window (74 vs 72 taps axis at d=2), and XLA's f32 dot regroups
-    partial sums by shape -- a ~1-f32-ulp shift that occasionally lands on a
-    bf16 rounding boundary (measured: 17 px of 172k, max 1.4e-3). Same
-    contract as the sharded turbo tests."""
-    import jax.numpy as jnp
-
-    from test_sharding import _assert_bf16_grid_close
-
-    from image_denoising_filter_tpu.ops import fast
-
-    h, w = 112, 384  # ragged at every d's tile floor
-    noisy = rng.uniform(0, 1, (h, w, 4)).astype(np.float32)
-    if ua:
-        noisy[..., 3] = 1.0
-    bp = BilateralParams(uniform_alpha=ua)
-    planar = jnp.transpose(jnp.asarray(noisy), (2, 0, 1))
-    two = np.asarray(fast._grid_pipeline_planar(planar, bp, 6, d, fused=False))
-    fused = np.asarray(fast._grid_pipeline_planar(planar, bp, 6, d, fused=True))
-    _assert_bf16_grid_close(fused, two)
-
-
-def test_fused_pipeline_odd_shape_matches(rng):
-    import jax.numpy as jnp
-
-    from test_sharding import _assert_bf16_grid_close
-
-    from image_denoising_filter_tpu.ops import fast
-
-    noisy = rng.uniform(0, 1, (97, 131, 4)).astype(np.float32)
-    planar = jnp.transpose(jnp.asarray(noisy), (2, 0, 1))
-    bp = BilateralParams()
-    two = np.asarray(fast._grid_pipeline_planar(planar, bp, 8, 2, fused=False))
-    fused = np.asarray(fast._grid_pipeline_planar(planar, bp, 8, 2, fused=True))
-    _assert_bf16_grid_close(fused, two)
-
-
-def test_fused_pipeline_rebased_tiles_within_delta_floor(rng):
-    """Structured content with a bright tile (local guide range away from
-    level 0): the fused kernel bases its telescoped sum at g_{floor(tmin)},
-    reassociating the bf16-rounded level deltas vs the two-kernel path's
-    fixed g_0 base. The divergence must stay at the bf16 delta-rounding
-    floor (<= ~2e-3 absolute -- the same floor both pipelines carry vs an
-    f32 grid), ~20 dB below the 40 dB turbo quality gate."""
-    import jax.numpy as jnp
-
-    from image_denoising_filter_tpu.ops import fast
-
-    h, w = 512, 512  # two 256-row tiles at d=2
-    yy = np.mgrid[0:h, 0:w][0].astype(np.float32) / (h - 1)
-    base = np.where(yy < 0.5, 0.15 + 0.1 * yy, 0.85 + 0.1 * (yy - 0.5))
-    img = np.stack([base, base * 0.9 + 0.05, base * 0.8 + 0.1,
-                    np.ones_like(base)], -1).astype(np.float32)
-    img[..., :3] += rng.normal(0, 0.02, (h, w, 3)).astype(np.float32)
-    img[..., :3] = np.clip(img[..., :3], 0, 1)
-    bp = BilateralParams(uniform_alpha=True)
-    planar = jnp.transpose(jnp.asarray(img), (2, 0, 1))
-    two = np.asarray(fast._grid_pipeline_planar(planar, bp, 6, 2, fused=False))
-    fused = np.asarray(fast._grid_pipeline_planar(planar, bp, 6, 2, fused=True))
-    diff = np.abs(fused - two).max()
-    assert diff <= 2e-3, f"fused rebased divergence {diff:.2e} > 2e-3"
+    assert np.isfinite(got).all() and got[..., :3].max() > 1.0
+    assert got[..., :3].min() < 0.0
+    np.testing.assert_allclose(got[..., :3], a * base[..., :3] + b, rtol=1e-4, atol=1e-4 * a)
+    np.testing.assert_allclose(got[..., 3], base[..., 3], atol=1e-5)
 
 
 @pytest.mark.parametrize("d", [2, 4])
-def test_fused_cull_mask_variants_identical(rng, d):
-    """cull_mask only changes how the culling bounds handle ragged-block
-    garbage; on the fused kernel (where the bounds also gate grid
-    CONSTRUCTION) the two variants must still produce identical output."""
-    import jax.numpy as jnp
+def test_turbo_hdr_range_layers(rng, d):
+    """HDR through the guided grid: stretching target and layers affinely
+    (and sigma_color with them) stretches the normalized output the same
+    way, values above 1 and below 0 included."""
+    from image_denoising_filter.config import LayersParams
 
-    from image_denoising_filter_tpu.ops import fast
+    _, noisy, layers = _guided_scene(rng)
+    a, b = 5.0, -2.0
 
-    noisy = rng.uniform(0, 1, (112, 384, 4)).astype(np.float32)
+    def stretch(x):
+        y = x.copy()
+        y[..., :3] = a * x[..., :3] + b
+        return y
+
+    base = _turbo_layers(noisy, layers, LayersParams(), 6, d)
+    got = _turbo_layers(
+        stretch(noisy), [stretch(x) for x in layers],
+        LayersParams(sigma_color=0.2 * a), 6, d,
+    )
+    assert np.isfinite(got).all() and got[..., :3].max() > 1.0
+    assert got[..., :3].min() < 0.0
+    np.testing.assert_allclose(got[..., :3], a * base[..., :3] + b, rtol=1e-4, atol=1e-4 * a)
+
+
+@pytest.mark.parametrize("d,edge", [(2, 33), (4, 34)])
+def test_turbo_edge_inside_a_cell(d, edge):
+    """A step edge that splits a d x d cell: each pixel is splatted at its
+    own level, so neither side bleeds into the other (pooling the cell
+    first would put it on the levels in between: ~26 dB at d = 4)."""
+    from image_denoising_filter.ops.xla import bilateral_xla
+
+    img = np.ones((32, 64, 4), np.float32)
+    img[..., :3] = 0.2
+    img[:, edge:, :3] = 0.8
+    img[:, edge:, 1] = 0.7
     bp = BilateralParams()
-    planar = jnp.transpose(jnp.asarray(noisy), (2, 0, 1))
-    a = np.asarray(
-        fast._grid_pipeline_planar(planar, bp, 6, d, fused=True, cull_mask=True)
-    )
-    b = np.asarray(
-        fast._grid_pipeline_planar(planar, bp, 6, d, fused=True, cull_mask=False)
-    )
-    np.testing.assert_array_equal(a, b)
-
-
-def test_fused_pipeline_zero_border_and_bf16_out(rng):
-    import jax.numpy as jnp
-
-    from image_denoising_filter_tpu.config import BorderPolicy
-    from image_denoising_filter_tpu.ops import fast
-
-    noisy = rng.uniform(0, 1, (96, 256, 4)).astype(np.float32)
-    bp = BilateralParams(border=BorderPolicy.ZERO)
-    planar = jnp.transpose(jnp.asarray(noisy), (2, 0, 1))
-    from test_sharding import _assert_bf16_grid_close
-
-    two = np.asarray(fast._grid_pipeline_planar(planar, bp, 6, 2, fused=False))
-    fused = np.asarray(fast._grid_pipeline_planar(planar, bp, 6, 2, fused=True))
-    _assert_bf16_grid_close(fused, two)
-    fb = np.asarray(
-        fast._grid_pipeline_planar(
-            planar, bp, 6, 2, fused=True, out_dtype=jnp.bfloat16
-        )
-    ).astype(np.float32)
-    assert np.abs(fb - two).max() <= 4e-3  # one bf16 output rounding
-
-
-@pytest.mark.parametrize("d", [2, 4])
-def test_fused_guided_matches_two_kernel_full_range(rng, d):
-    """Fused guided build+slice vs the two-kernel guided pipeline on
-    FULL-RANGE layer content (floor(tmin) == 0 in every tile -> identical
-    level structure; see test_fused_pipeline_matches_two_kernel_full_range).
-    Compared on the unnormalized partials AND the normalized output, at the
-    stored-grid bf16 contract."""
-    import jax.numpy as jnp
-
-    from test_sharding import _assert_bf16_grid_close
-
-    from image_denoising_filter_tpu.config import LayersParams
-    from image_denoising_filter_tpu.ops import fast
-
-    h, w = 112, 384  # ragged at every d's tile floor
-    noisy = rng.uniform(0, 1, (h, w, 4)).astype(np.float32)
-    layer = rng.uniform(0, 1, (h, w, 4)).astype(np.float32)
-    lp = LayersParams()
-    t_d, l_d = jnp.asarray(noisy), jnp.asarray(layer)
-    wc2, nw2 = fast.cross_bilateral_layers_fast(t_d, l_d, lp, 6, d, fused=False)
-    wcf, nwf = fast.cross_bilateral_layers_fast(t_d, l_d, lp, 6, d, fused=True)
-    _assert_bf16_grid_close(np.asarray(wcf), np.asarray(wc2))
-    _assert_bf16_grid_close(np.asarray(nwf), np.asarray(nw2))
-    out2 = np.asarray(fast.normalize_layers_fast(wc2, nw2))
-    outf = np.asarray(fast.normalize_layers_fast(wcf, nwf))
-    _assert_bf16_grid_close(outf, out2)
-
-
-def test_fused_guided_odd_shape_matches(rng):
-    """Odd (ragged at 16*d and 128*d) shapes + levels=8 through the fused
-    guided kernel's boundary fixups."""
-    import jax.numpy as jnp
-
-    from test_sharding import _assert_bf16_grid_close
-
-    from image_denoising_filter_tpu.config import LayersParams
-    from image_denoising_filter_tpu.ops import fast
-
-    h, w = 118, 410
-    noisy = rng.uniform(0, 1, (h, w, 4)).astype(np.float32)
-    layer = rng.uniform(0, 1, (h, w, 4)).astype(np.float32)
-    lp = LayersParams()
-    t_d, l_d = jnp.asarray(noisy), jnp.asarray(layer)
-    wc2, nw2 = fast.cross_bilateral_layers_fast(t_d, l_d, lp, 8, 2, fused=False)
-    wcf, nwf = fast.cross_bilateral_layers_fast(t_d, l_d, lp, 8, 2, fused=True)
-    _assert_bf16_grid_close(np.asarray(wcf), np.asarray(wc2))
-    _assert_bf16_grid_close(np.asarray(nwf), np.asarray(nw2))
-
-
-def test_fused_guided_rebased_tiles_within_delta_floor(rng):
-    """Structured LAYER guide with a bright region (local guide range away
-    from level 0): the fused guided kernel rebases its telescoped sum at
-    g_{floor(tmin)} per channel. Unlike the bilateral grid (normalized
-    in-kernel per level), the guided grid rebases the UNNORMALIZED num and
-    den separately and the final quotient amplifies their bf16
-    delta-rounding by ~1/den -- so the floor is ~2x the bilateral one
-    (measured 2.5e-3; bound 4e-3, a ~48 dB WORST-PIXEL floor -- the 40 dB
-    turbo gates measure PSNR, which sits far above it; see
-    test_fused_pipeline_rebased_tiles_within_delta_floor)."""
-    import jax.numpy as jnp
-
-    from image_denoising_filter_tpu.config import LayersParams
-    from image_denoising_filter_tpu.ops import fast
-
-    h, w = 512, 512  # two 256-row tiles at d=2
-    yy = np.mgrid[0:h, 0:w][0].astype(np.float32) / (h - 1)
-    base = np.where(yy < 0.5, 0.15 + 0.1 * yy, 0.85 + 0.1 * (yy - 0.5))
-    layer = np.stack([base, base * 0.9 + 0.05, base * 0.8 + 0.1,
-                      np.ones_like(base)], -1).astype(np.float32)
-    noisy = np.clip(
-        layer + rng.normal(0, 0.05, layer.shape), 0, 1
-    ).astype(np.float32)
-    noisy[..., 3] = 1.0
-    lp = LayersParams()
-    t_d, l_d = jnp.asarray(noisy), jnp.asarray(layer)
-    wc2, nw2 = fast.cross_bilateral_layers_fast(t_d, l_d, lp, 6, 2, fused=False)
-    wcf, nwf = fast.cross_bilateral_layers_fast(t_d, l_d, lp, 6, 2, fused=True)
-    out2 = np.asarray(fast.normalize_layers_fast(wc2, nw2))
-    outf = np.asarray(fast.normalize_layers_fast(wcf, nwf))
-    diff = np.abs(outf - out2).max()
-    assert diff <= 4e-3, f"fused guided rebased divergence {diff:.2e} > 4e-3"
+    got = np.asarray(bilateral_fast(img, bp, 5, d))
+    exact = np.asarray(bilateral_xla(img, bp))
+    db = ref.psnr(got[..., :3], exact[..., :3])
+    assert db >= 45.0, f"edge inside a {d}-px cell: {db:.1f} dB"

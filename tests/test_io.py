@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from image_denoising_filter_tpu.utils import exr, imageio, png
+from image_denoising_filter.utils import exr, imageio, png
 
 
 def test_png_roundtrip(rng):
@@ -199,8 +199,7 @@ def test_exr_tiled_decode_matches_system_openexr(tmp_path, rng, comp, mip):
     """Tiled single-part EXR decode (tinyexr's loader accepts these): tiles of
     several shapes, partial edge tiles, ONE_LEVEL / MIPMAP / RIPMAP (only
     level (0,0) feeds the image, like tinyexr, but the RIPMAP offset-table
-    level-pair enumeration must be walked correctly to find it -- round-2
-    ADVICE)."""
+    level-pair enumeration must be walked correctly to find it)."""
     import subprocess
 
     for (h, w), (txs, tys) in [((40, 56), (16, 16)), ((33, 17), (32, 8)),

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from image_denoising_filter_tpu.utils import imageio
+from image_denoising_filter.utils import imageio
 
-native = pytest.importorskip("image_denoising_filter_tpu.utils.native")
+native = pytest.importorskip("image_denoising_filter.utils.native")
 if not native.available():
     pytest.skip("libidf_native.so not built", allow_module_level=True)
 
@@ -67,7 +67,7 @@ def test_loader_missing_file(tmp_path):
 
 
 def test_prefetcher_uses_native(tmp_path):
-    from image_denoising_filter_tpu.runtime import FramePrefetcher
+    from image_denoising_filter.runtime import FramePrefetcher
 
     paths = _write_frames(tmp_path, 5)
     pf = FramePrefetcher(

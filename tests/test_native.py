@@ -6,11 +6,11 @@ Skipped when libidf_native.so isn't built (`make -C native`).
 import numpy as np
 import pytest
 
-from image_denoising_filter_tpu.config import CpuBilateralParams
-from image_denoising_filter_tpu.ops import reference as ref
-from image_denoising_filter_tpu.utils import exr, png
+from image_denoising_filter.config import CpuBilateralParams
+from image_denoising_filter.ops import reference as ref
+from image_denoising_filter.utils import exr, png
 
-native = pytest.importorskip("image_denoising_filter_tpu.utils.native")
+native = pytest.importorskip("image_denoising_filter.utils.native")
 if not native.available():
     pytest.skip("libidf_native.so not built", allow_module_level=True)
 

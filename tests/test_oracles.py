@@ -12,13 +12,13 @@ import math
 import numpy as np
 import pytest
 
-from image_denoising_filter_tpu.config import (
+from image_denoising_filter.config import (
     BilateralParams,
     CpuBilateralParams,
     LayersParams,
     NlmParams,
 )
-from image_denoising_filter_tpu.ops import reference as ref
+from image_denoising_filter.ops import reference as ref
 
 
 def _clamp_tap(img, y, x):

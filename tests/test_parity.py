@@ -12,16 +12,16 @@ import sys
 import numpy as np
 import pytest
 
-from image_denoising_filter_tpu.config import (
+from image_denoising_filter.config import (
     BilateralParams,
     CpuBilateralParams,
     NlmParams,
     RunConfig,
 )
-from image_denoising_filter_tpu.ops import bilateral, bilateral_xla
-from image_denoising_filter_tpu.ops import reference as ref
-from image_denoising_filter_tpu.runtime import Session
-from image_denoising_filter_tpu.utils import imageio
+from image_denoising_filter.ops import bilateral, bilateral_xla
+from image_denoising_filter.ops import reference as ref
+from image_denoising_filter.runtime import Session
+from image_denoising_filter.utils import imageio
 
 
 def test_psnr_parity_vs_cpu_reference(rng):
@@ -45,7 +45,7 @@ def test_psnr_parity_vs_cpu_reference(rng):
 
 
 def test_native_cpu_psnr_parity(rng):
-    native = pytest.importorskip("image_denoising_filter_tpu.utils.native")
+    native = pytest.importorskip("image_denoising_filter.utils.native")
     if not native.available():
         pytest.skip("native lib not built")
     img = rng.uniform(0, 1, (48, 64, 4)).astype(np.float32)
@@ -92,7 +92,7 @@ def test_make_dataset_tool(tmp_path):
     layers = os.listdir(os.path.join(out, "RenderElements"))
     assert len(layers) == 9  # 3 layers x 3 frames
     # And it's consumable by the full pipeline.
-    from image_denoising_filter_tpu.utils import dataset
+    from image_denoising_filter.utils import dataset
 
     ds = dataset.discover(
         f"{out}/Animation01_LDR_0001.png", multiframe=True, use_layers=True

@@ -8,22 +8,22 @@ import os
 import numpy as np
 import pytest
 
-from image_denoising_filter_tpu.config import (
+from image_denoising_filter.config import (
     BilateralParams,
     GPU_BATTERY,
     LayersParams,
     NlmParams,
     RunConfig,
 )
-from image_denoising_filter_tpu.models import (
+from image_denoising_filter.models import (
     BilateralDenoiser,
     LayerGuidedDenoiser,
     NlmDenoiser,
     TemporalNlmDenoiser,
 )
-from image_denoising_filter_tpu.ops import reference as ref
-from image_denoising_filter_tpu.runtime import FramePrefetcher, Session
-from image_denoising_filter_tpu.utils import imageio
+from image_denoising_filter.ops import reference as ref
+from image_denoising_filter.runtime import FramePrefetcher, Session
+from image_denoising_filter.utils import imageio
 
 BP = BilateralParams(radius=3)
 LP = LayersParams(radius=3)
@@ -105,7 +105,7 @@ def test_timing_report_counters_disjoint():
     exec (t1-t0) and transfer (t2-t1) disjoint (src/main.cpp:1095-1102)."""
     import time
 
-    from image_denoising_filter_tpu.utils.timing import TimingReport
+    from image_denoising_filter.utils.timing import TimingReport
 
     rep = TimingReport()
     wall0 = time.perf_counter_ns()
@@ -182,8 +182,8 @@ def test_session_overlap_drops_last_frame(tmp_path):
     texture while copying the next frame (src/main.cpp:1554-1572), so the last
     uploaded frame is never filtered. Overlap output == temporal NLM over
     frames[:-1]; with identical frame sets the schedules agree exactly."""
-    from image_denoising_filter_tpu.models import TemporalNlmDenoiser
-    from image_denoising_filter_tpu.utils import dataset as dataset_mod
+    from image_denoising_filter.models import TemporalNlmDenoiser
+    from image_denoising_filter.utils import dataset as dataset_mod
 
     target = _make_anim(tmp_path, n_frames=4)
     session = Session(target, nlm_params=NP_, output_dir=str(tmp_path))
@@ -233,8 +233,8 @@ def test_uniform_alpha_not_applied_with_zero_border(tmp_path):
     """ZERO border injects alpha-0 taps with nonzero weight, so the
     uniform-alpha fast path would corrupt border alpha -- Session must not
     auto-enable it (code-review regression test)."""
-    from image_denoising_filter_tpu.config import BorderPolicy
-    from image_denoising_filter_tpu.ops import reference as ref_ops
+    from image_denoising_filter.config import BorderPolicy
+    from image_denoising_filter.ops import reference as ref_ops
 
     rng = np.random.default_rng(5)
     img = rng.uniform(0, 1, (24, 32, 4)).astype(np.float32)
@@ -319,7 +319,7 @@ def test_multiframe_mixed_alpha_frames_exact(tmp_path):
     session = Session(target, nlm_params=NP_, output_dir=out_dir)
     got = session.run(RunConfig(nlm=True, multiframe=True)).image
 
-    from image_denoising_filter_tpu.utils import dataset as dataset_mod
+    from image_denoising_filter.utils import dataset as dataset_mod
 
     ds = dataset_mod.discover(target, multiframe=True, max_frames=None)
     timg, _ = imageio.load(target)
@@ -331,11 +331,7 @@ def test_multiframe_mixed_alpha_frames_exact(tmp_path):
 
 def test_run_turbo_default_levels_per_d(tmp_path):
     """levels=None resolves the per-d default: K=5 at downsample 2 and 4
-    for BOTH families (bilateral: identical dB to K=6 at every d, +10-16%
-    at d=4 / +11-13% at d=2 on chip in round 4; layers: within 0.1-0.3 dB,
-    +7.2% at d=2 / +18-51% at d=4 interleaved in round 5 --
-    tools/layers_k_ab_r4.py), K=6 at other d. Explicit levels= always
-    wins."""
+    for BOTH families, K=6 at other d. Explicit levels= always wins."""
     rng = np.random.default_rng(7)
     img = rng.uniform(0, 1, (24, 32, 4)).astype(np.float32)
     img[..., 3] = 1.0

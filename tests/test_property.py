@@ -4,7 +4,7 @@ hold for arbitrary shapes and contents, not just the fixtures."""
 import numpy as np
 from hypothesis import given, settings, strategies as st
 
-from image_denoising_filter_tpu.utils import exr, imageio, png
+from image_denoising_filter.utils import exr, imageio, png
 
 
 @st.composite
@@ -50,7 +50,7 @@ def test_ldr_quantize_roundtrip_property(img):
 @given(_rgba_u8())
 def test_native_codecs_agree_property(img):
     try:
-        from image_denoising_filter_tpu.utils import native
+        from image_denoising_filter.utils import native
 
         if not native.available():
             return

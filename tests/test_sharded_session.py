@@ -4,14 +4,14 @@ single-device battery (on the virtual 8-device CPU mesh)."""
 import numpy as np
 import pytest
 
-from image_denoising_filter_tpu.config import (
+from image_denoising_filter.config import (
     BilateralParams,
     LayersParams,
     NlmParams,
     RunConfig,
 )
-from image_denoising_filter_tpu.runtime import Session
-from image_denoising_filter_tpu.utils import imageio
+from image_denoising_filter.runtime import Session
+from image_denoising_filter.utils import imageio
 
 BP = BilateralParams(radius=3)
 LP = LayersParams(radius=3)
@@ -71,35 +71,17 @@ def test_sharded_session_odd_rows(tmp_path):
 
 
 def test_sharded_session_turbo(tmp_path):
-    """Sharded turbo (mesh set): pads rows to shard*downsample multiples, runs
-    the row-sharded grid pipeline, and crops -- bit-equal to the single-device
-    grid pipeline on the same padded frame."""
-    import jax.numpy as jnp
-
-    from image_denoising_filter_tpu.ops import fast
+    """The approximate bilateral-grid mode runs on one device only: with a
+    mesh, Session.run_turbo refuses with a clear error (the sharded grid
+    paths were removed), and so does the CLI's --turbo with --mesh."""
+    from image_denoising_filter import cli
 
     rng = np.random.default_rng(2)
-    img = rng.uniform(0, 1, (50, 64, 4)).astype(np.float32)
     target = str(tmp_path / "turbo_0000.png")
-    imageio.save(target, img)
-    bp = BilateralParams()  # reference sigmas (effective radius 13)
-    sess = Session(target, bilateral_params=bp, output_dir=str(tmp_path),
-                   mesh_shape=(1, 2))
-    res = sess.run_turbo(RunConfig(), levels=8, downsample=2)
-    assert res.image.shape == (50, 64, 4)
-
-    # Single-device grid pipeline on the same edge-padded frame (52 rows).
-    loaded, _ = imageio.load(target)
-    padded = np.pad(loaded, ((0, 2), (0, 0), (0, 0)), mode="edge")
-    planar = jnp.transpose(jnp.asarray(padded), (2, 0, 1))
-    rgb = planar[:3]
-    lmin = jnp.min(rgb, axis=(1, 2))
-    lmax = jnp.max(rgb, axis=(1, 2))
-    step = jnp.maximum(lmax - lmin, 1e-6) / 7
-    want = np.transpose(
-        np.asarray(fast._grid_pipeline_planar(planar, bp, 8, 2)),
-        (1, 2, 0),
-    )[:50]
-    # ~1 ulp: MXU tree-reduction grouping in the build kernel's blur matmuls
-    # shifts with the tap band's offset inside shard tiles (test_sharding.py).
-    np.testing.assert_allclose(res.image, want, rtol=3e-6, atol=3e-7)
+    imageio.save(target, rng.uniform(0, 1, (50, 64, 4)).astype(np.float32))
+    sess = Session(target, output_dir=str(tmp_path), mesh_shape=(1, 2))
+    for cfg in (RunConfig(), RunConfig(use_layers=True)):
+        with pytest.raises(ValueError, match="one device"):
+            sess.run_turbo(cfg, downsample=2)
+    with pytest.raises(SystemExit, match="one device"):
+        cli.main([target, "--configs", "bilateral", "--turbo", "2", "--mesh", "1x2"])

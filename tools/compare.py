@@ -28,8 +28,8 @@ def main(argv=None) -> int:
     ap.add_argument("--channels", default="rgb", choices=["rgb", "rgba"])
     args = ap.parse_args(argv)
 
-    from image_denoising_filter_tpu.ops.reference import psnr, ssim
-    from image_denoising_filter_tpu.utils import imageio
+    from image_denoising_filter.ops.reference import psnr, ssim
+    from image_denoising_filter.utils import imageio
 
     a, _ = imageio.load(args.a)
     b, _ = imageio.load(args.b)

@@ -87,7 +87,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    from image_denoising_filter_tpu.utils import imageio
+    from image_denoising_filter.utils import imageio
 
     h, w = (int(x) for x in args.size.split("x"))
     rng = np.random.default_rng(args.seed)
